@@ -6,8 +6,7 @@ Shapes mirroring the reference cases:
 - shatter_guard: many misaligned fine layouts; refine explodes the block
   count, auto caps it.
 
-Record (v5e-1, 2026-08-16): in this framework the unification choice only
-changes METADATA cost (the dense executor moves no bytes at alignment), so
+In this framework the unification choice only changes METADATA cost (the dense executor moves no bytes at alignment), so
 the relevant number is the optimizer wall + the resulting block count that
 downstream per-block consumers would see.
 """

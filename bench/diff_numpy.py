@@ -1,4 +1,4 @@
-"""Differential probe: TPU results vs numpy over a workload matrix."""
+"""Differential probe: device results vs numpy over a workload matrix."""
 
 from __future__ import annotations
 

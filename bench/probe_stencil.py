@@ -1,119 +1,108 @@
-"""Probe: raw XLA formulations of the 4096^2 f32 depth-1 Laplace stencil.
+"""Probe: depth-1 Laplace stencil forms against a copy of the same bytes.
 
-Finds the machine's stencil speed-of-light to frame the stencil2d_4096
-workload (bench_suite) against a *measured* bound rather than the 819
-GB/s spec figure (a pure r+w copy stream measures ~666 GB/s on this
-chip — see probe_relayout.py).
+Times, on one device, each form of ``models.pipelines.stencil2d`` (the
+``roll`` and ``slices`` map_overlap formulations, through the public API
+on a persisted input; the roll form also as one whole-array stencil,
+``tpu.overlap-method="shard"``) and two whole-array jnp forms, against a
+jitted copy that reads and writes the same bytes.  Every time is the median of
+repeated calls, each ended by ``block_until_ready``.
 
-Variants (whole-array, ignoring boundary mode differences — all
-interior-equivalent, which is what map_overlap's trim keeps):
-  roll4       4x jnp.roll + arithmetic        (what the workload runs today)
-  slices      pad once, 5 shifted slices      (fusable strided reads)
-  rw_sum      two 1-D reduce_window sums      (laplace = row3+col3-6x)
-  conv33      lax.conv 3x3 SAME               (MXU path)
-  copy        x*1.0000001                     (stream bound reference)
+    python bench/probe_stencil.py [--n 16384] [--chunk 4096] [--reps 20]
 
-Run on the real chip: python bench/probe_stencil.py
+Prints one line per form: median ms, effective GB/s (read + write of the
+array), and the share of the copy's rate.
 """
 
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import subprocess
+import sys
 import time
 
 import numpy as np
 
-import jax
-import jax.numpy as jnp
-from jax import lax
-
-N = 4096
-NBYTES = N * N * 4
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def roll4(x):
-    return (
-        jnp.roll(x, 1, 0) + jnp.roll(x, -1, 0) + jnp.roll(x, 1, 1) + jnp.roll(x, -1, 1)
-        - 4 * x
-    )
+def _card():
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30,
+        ).stdout.strip().splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError):
+        return "no nvidia-smi"
 
 
-def slices(x):
-    p = jnp.pad(x, 1)
-    return (
-        p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:] - 4 * x
-    )
-
-
-def rw_sum(x):
-    row3 = lax.reduce_window(x, 0.0, lax.add, (3, 1), (1, 1), "SAME")
-    col3 = lax.reduce_window(x, 0.0, lax.add, (1, 3), (1, 1), "SAME")
-    return row3 + col3 - 6 * x
-
-
-_K = jnp.array([[0, 1, 0], [1, -4, 1], [0, 1, 0]], jnp.float32)
-
-
-def conv33(x):
-    return lax.conv_general_dilated(
-        x[None, None],
-        _K[None, None],
-        (1, 1),
-        "SAME",
-        dimension_numbers=("NCHW", "OIHW", "NCHW"),
-    )[0, 0]
-
-
-def copy(x):
-    return x * np.float32(1.0000001)
+def _median_ms(fn, reps):
+    fn().block_until_ready()  # compile + first run
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn().block_until_ready()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
 
 
 def main():
-    x = jnp.array(np.random.default_rng(0).standard_normal((N, N), np.float32))
-    _ = np.asarray(x.ravel()[0])
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=16384)
+    ap.add_argument("--chunk", type=int, default=4096)
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
 
-    def _fetch():
-        t0 = time.perf_counter()
-        _ = np.asarray(x.ravel()[0])
-        return time.perf_counter() - t0
+    import jax
+    import jax.numpy as jnp
 
-    rtt = min(_fetch() for _ in range(5))
-    print(f"rtt {rtt*1e3:.2f} ms", flush=True)
+    import dask_array_tpu as da
+    from dask_array_tpu.models import pipelines as P
 
-    # value parity on the interior first
-    ref = np.asarray(jax.jit(roll4)(x))[1:-1, 1:-1]
-    for name, fn in [("slices", slices), ("rw_sum", rw_sum), ("conv33", conv33)]:
-        got = np.asarray(jax.jit(fn)(x))[1:-1, 1:-1]
-        ok = np.allclose(got, ref, rtol=1e-5, atol=1e-5)
-        print(f"parity {name:8s} {'OK' if ok else 'MISMATCH'}", flush=True)
+    dev = jax.devices()[0]
+    n, chunk = args.n, args.chunk
+    nbytes = n * n * 4
+    print(f"device {dev.platform} {dev.device_kind} | card {_card()} | "
+          f"jax {jax.__version__} | {n}x{n} f32 chunk {chunk}", flush=True)
 
-    for name, fn in [
-        ("copy", copy),
-        ("roll4", roll4),
-        ("slices", slices),
-        ("rw_sum", rw_sum),
-        ("conv33", conv33),
-    ]:
-        try:
-            jf = jax.jit(fn)
-            out = jf(x)
-            _ = np.asarray(out.ravel()[0])
+    x = jnp.asarray(np.random.default_rng(0).standard_normal((n, n), np.float32))
+    copy = jax.jit(lambda v: v * jnp.float32(1.0000001))
 
-            def loop(iters):
-                t0 = time.perf_counter()
-                for _ in range(iters):
-                    o = jf(x)
-                _ = np.asarray(o.ravel()[0])
-                return (time.perf_counter() - t0 - rtt) / iters
+    def slices_whole(v):
+        p = jnp.pad(v, 1, mode="symmetric")
+        return p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:] - 4 * v
 
-            t = loop(8)
-            iters = 8
-            while t * iters < 1.0 and iters < 1600:
-                iters = min(1600, max(iters * 4, int(1.5 / max(t, 1e-4))))
-                t = loop(iters)
-            print(
-                f"{name:8s} {t*1e3:7.3f} ms  {2*NBYTES/t/1e9:7.1f} GB/s (rw)",
-                flush=True,
-            )
-        except Exception as e:  # noqa: BLE001
-            print(f"{name:8s} FAILED {type(e).__name__}: {str(e)[:120]}", flush=True)
+    def roll_whole(v):
+        return (jnp.roll(v, 1, 0) + jnp.roll(v, -1, 0) + jnp.roll(v, 1, 1)
+                + jnp.roll(v, -1, 1) - 4 * v)
+
+    forms = {
+        "copy": lambda: copy(x),
+        "jnp_pad_slices": (lambda f: lambda: f(x))(jax.jit(slices_whole)),
+        "jnp_roll": (lambda f: lambda: f(x))(jax.jit(roll_whole)),
+    }
+    for form in ("roll", "slices"):
+        y = P.stencil2d(n=n, chunk=chunk, form=form, persist=True)
+        forms[f"stencil2d_{form}"] = (lambda y: lambda: y.compute_device())(y)
+    # the roll form as one whole-array stencil (tpu.overlap-method="shard")
+    with da.config.set({"tpu.overlap-method": "shard"}):
+        y = P.stencil2d(n=n, chunk=chunk, form="roll", persist=True)
+    forms["stencil2d_roll_shard"] = (lambda y: lambda: y.compute_device())(y)
+
+    refs = {}  # one reference per input: the jnp array and the da.random one
+    copy_ms = None
+    for name, fn in forms.items():
+        ms = _median_ms(fn, args.reps)
+        if name == "copy":
+            copy_ms = ms
+        gbps = 2 * nbytes / (ms / 1e3) / 1e9
+        print(f"{name:18s} {ms:9.4f} ms  {gbps:8.1f} GB/s  "
+              f"{copy_ms / ms:6.3f} of copy | card {_card()}", flush=True)
+        if name not in ("copy", "jnp_roll"):  # jnp_roll wraps: a periodic boundary
+            got = np.asarray(fn())
+            ref = refs.setdefault(name.startswith("stencil2d"), got)
+            np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
 if __name__ == "__main__":

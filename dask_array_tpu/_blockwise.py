@@ -4,7 +4,7 @@ Parity: the roles of ``Blockwise``/``Elemwise``/``FusedBlockwise`` and
 ``optimize_blockwise_fusion_array`` in
 ``/root/reference/dask_array/_blockwise.py`` (fresh implementation).
 
-TPU-first execution: an Elemwise (and any dense-safe Blockwise) builds on
+XLA-first execution: an Elemwise (and any dense-safe Blockwise) builds on
 the *dense* traced array — broadcasting, fusion into neighboring matmuls,
 and sharding propagation are all delegated to XLA, which does this better
 than any hand-rolled per-block task fusion.  General blockwise ops (user

@@ -8,7 +8,7 @@ Reference parity: the behaviors of ``normalize_chunks``/``auto_chunks``/
 ``common_blockdim`` in ``/root/reference/dask_array/_core_utils.py:524-931``
 (fresh implementation).
 
-On TPU the chunk grid is a *logical planning* structure: the executor maps
+On the device the chunk grid is a *logical planning* structure: the executor maps
 regular chunk grids onto ``jax.sharding`` partition specs and lets XLA place
 blocks; irregular grids fall back to per-block dispatch.
 """
@@ -108,8 +108,8 @@ def dtype_key(dt) -> str:
 def is_float_dtype(dt) -> bool:
     """``np.issubdtype(dt, np.floating)`` extended to ml_dtypes floats
     (bfloat16, float8_*), which live OUTSIDE numpy's type hierarchy —
-    a bare issubdtype check silently routes the TPU's native dtype down
-    integer/f64 promotion paths (f64 is ~100x emulated on this chip)."""
+    a bare issubdtype check silently routes bf16 down integer/f64
+    promotion paths."""
     dt = np.dtype(dt)
     if dt.kind == "f":
         return True

@@ -268,10 +268,10 @@ class Array:
 
     def to_backend(self, backend=None, **kwargs):
         """Move to a named array backend.  This framework has ONE device
-        backend (jax/TPU), so the default/'jax'/'tpu' names return self;
+        backend (jax), so the default/'jax' names return self;
         anything else is unknown (parity: ``_collection.py:1182`` — the
         reference moves numpy<->cupy here)."""
-        if backend in (None, "jax", "tpu", "dask_array_tpu"):
+        if backend in (None, "jax", "dask_array_tpu"):
             return self
         raise ValueError(f"unknown array backend {backend!r}")
 

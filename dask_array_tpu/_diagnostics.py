@@ -1,7 +1,7 @@
 """Optimizer diagnostics: trace_rewrites, explain, chunk_report, expr_table.
 
 Parity: ``/root/reference/dask_array/_diagnostics.py`` — fresh
-implementation over the engine's rewrite hook, plus a TPU extra:
+implementation over the engine's rewrite hook, plus an XLA extra:
 ``explain`` reports the compiled-program cache state and ``xla_profile``
 wraps one compute in the jax profiler.
 """
@@ -314,12 +314,6 @@ def tier_report(x, file=None):
     mode = "eager (whole tree)" if counts.get("eager") else "trace (one jitted XLA program)"
     lines.append(f"  mode: {mode}")
     lines.append(f"  native plankit: {'engaged' if native.available() else 'Python fallback'}")
-    from dask_array_tpu.kernels.stencil import _MOSAIC_ACCEPTS
-
-    probed = _MOSAIC_ACCEPTS.get("band")
-    if probed is not None:
-        state = "accepted" if probed else f"declined ({_MOSAIC_ACCEPTS.get('band_error', '?')[:80]})"
-        lines.append(f"  pallas band kernel (mosaic probe): {state}")
     for name, tier in rows:
         if tier != "trace":
             lines.append(f"  {name}: {tier}")
@@ -331,7 +325,7 @@ def tier_report(x, file=None):
 def plan_table(x, file=None):
     """Decode and display the binary plan record of ``x``'s optimized plan.
 
-    The TPU analog of inspecting the reference's emitted layer records
+    The XLA analog of inspecting the reference's emitted layer records
     (``_frisky/collect.py`` chunk groups + ``tests/test_frisky_protocol.py``
     re-decoder): the node table exactly as the executor's structural cache
     key sees it.  Returns the decoded dict, or None if the plan is not
@@ -373,7 +367,7 @@ def plan_table(x, file=None):
 def compiled_hlo(x, mesh=None):
     """The optimized HLO text of the ONE compiled XLA program for ``x``.
 
-    The TPU analog of inspecting the reference's emitted task records
+    The XLA analog of inspecting the reference's emitted task records
     (``bench/diff_layers.py``): what the executor will actually run —
     including the collectives GSPMD/shard_map placed (look for
     ``all-to-all``, ``all-gather``, ``collective-permute``, ``all-reduce``).

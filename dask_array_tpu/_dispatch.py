@@ -108,7 +108,7 @@ _DUCK_TYPES: tuple = ()
 def register_chunk_type(type_):
     """Register a duck-array type as a valid block type.
 
-    Parity: ``register_chunk_type`` (``_chunk_types.py:31``).  On the TPU
+    Parity: ``register_chunk_type`` (``_chunk_types.py:31``).  On the device
     execution path blocks are jax.Arrays; registered duck chunk types ride
     the HOST lane: their blocks are kept as-is (never ``np.asarray``-ed)
     and kernels run through the numpy API, which dispatches through the

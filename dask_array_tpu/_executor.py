@@ -1,12 +1,12 @@
-"""Trace-to-XLA executor: the TPU-native replacement for task graphs.
+"""Trace-to-XLA executor: the XLA-native replacement for task graphs.
 
 Where the reference materializes its lowered expression tree into a dask /
 Frisky task graph (``/root/reference/dask_array/_materialize.py``,
 ``_frisky/collect.py``), this executor *traces* the lowered tree into ONE
 jax function over the leaf buffers and jit-compiles it, so that XLA sees the
 entire pipeline at once: blockwise chains fuse into single kernels, block
-matmuls become large MXU contractions, rechunks become layout changes (and,
-on a mesh, ICI collectives inserted by SPMD partitioning).
+matmuls become large contractions, rechunks become layout changes (and,
+on a mesh, collectives inserted by SPMD partitioning).
 
 Every physical expression implements ``_build(ctx) -> BlockView``.  A
 ``BlockView`` lets a node produce its value in whichever form is natural —
@@ -360,7 +360,6 @@ _TRACE_CONFIG_KEYS = (
     "tpu.svd-method",
     "tpu.prng-impl",
     "tpu.random-precision",
-    "tpu.histogram-kernel",
     "tpu.overlap-method",
 )
 
@@ -487,7 +486,7 @@ def check_masked_ops(root) -> None:
         if rec(node) and type(node).__name__ not in _MASKED_PASSTHROUGH:
             raise NotImplementedError(
                 f"{type(node).__name__} on a masked array would silently "
-                "drop the mask on the TPU backend; call x.filled(...) "
+                "drop the mask on the device; call x.filled(...) "
                 "first (or use map_blocks with numpy.ma kernels)"
             )
 

@@ -7,7 +7,7 @@ token, cached ``chunks``/``_meta``/``_name`` metadata, and a
 ``simplify -> lower -> fuse`` optimization pipeline with sharing-aware
 slice/rechunk/shuffle pushdown gates.
 
-TPU-first difference: expressions do not lower to task graphs.  Physical
+XLA-first difference: expressions do not lower to task graphs.  Physical
 nodes implement ``_build(ctx) -> BlockView`` (see ``_executor.py``) and the
 whole lowered tree is traced into ONE jitted XLA computation over leaf
 buffers, sharded on a ``jax.sharding.Mesh`` when one is active.

@@ -1,6 +1,6 @@
 """Plan records: a versioned binary snapshot of a lowered expression plan.
 
-The TPU-native analog of the reference's binary records protocol
+The XLA-native analog of the reference's binary records protocol
 (``/root/reference/crates/dask-array-python/src/common.rs:436-459`` and its
 Python collection layer ``_frisky/collect.py``): where the reference ships
 per-layer task records to the Frisky scheduler, this runtime has no

@@ -3,10 +3,10 @@
 Parity: ``Rechunk``/``plan_rechunk``/``TasksRechunk`` in
 ``/root/reference/dask_array/_rechunk.py`` — fresh implementation.
 
-TPU-first: a rechunk is a *layout boundary*, not a copy tree.  Inside one
+XLA-first: a rechunk is a *layout boundary*, not a copy tree.  Inside one
 chip the dense traced array simply changes its logical block structure
 (free); on a mesh the node carries a sharding constraint so XLA partitions
-the program across the boundary with an ICI all-to-all — the SPMD analog of
+the program across the boundary with an all-to-all — the SPMD analog of
 the reference's multi-stage task planner (its copies-vs-tasks tradeoff
 becomes XLA's collective schedule).  The planner-level pushdowns (rechunk
 through IO/elemwise/transpose, no-op elision, rechunk∘rechunk collapse)
@@ -292,7 +292,7 @@ def _stage_degree(old, new):
 def plan_rechunk(old_chunks, new_chunks, itemsize=8, threshold=None, block_size_limit=None):
     """Plan intermediate chunk layouts for a rechunk.
 
-    On TPU this planner does NOT drive execution (GSPMD owns the collective
+    In the traced program this planner does NOT drive execution (GSPMD owns the collective
     schedule for a layout change); it exists for cost reporting (`explain`)
     and for the eager per-block path, where bounding the fan-in degree per
     stage keeps gather widths sane — the copies-vs-tasks tradeoff of the

@@ -1,9 +1,8 @@
 """Shuffle: reorder elements along one axis by positional groups.
 
 Each indexer group becomes exactly one output chunk (parity:
-``/root/reference/dask_array/_shuffle.py``).  TPU execution is a dense
-gather (``jnp.take``), which on a mesh lowers to an all-to-all + gather
-over ICI — the SPMD analog of the reference's grouped-task layer.
+``/root/reference/dask_array/_shuffle.py``).  Device execution is a dense
+gather (``jnp.take``), which on a mesh lowers to an all-to-all + gather — the SPMD analog of the reference's grouped-task layer.
 """
 
 from __future__ import annotations

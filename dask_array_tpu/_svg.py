@@ -91,7 +91,7 @@ def repr_html(array) -> str:
         ("Chunk bytes", _fmt(cbytes) if cbytes else "unknown"),
         ("Count", f"{array.npartitions} blocks"),
         ("dtype", str(array.dtype)),
-        ("Backend", "jax/XLA (TPU-native)"),
+        ("Backend", "jax/XLA"),
     ]
     table = "".join(
         f"<tr><th style='text-align:left'>{k}</th><td>{v}</td></tr>" for k, v in rows

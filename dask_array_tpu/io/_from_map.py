@@ -5,7 +5,7 @@ Parity: ``FromMap``/``from_delayed`` (``/root/reference/dask_array/io/
 _from_map.py``, ``_from_delayed.py``) and the external-graph interop role of
 ``FromGraph`` (``_from_graph.py``) — fresh implementation.
 
-TPU note: the block-producing functions are *host* code (file readers,
+Device note: the block-producing functions are *host* code (file readers,
 loaders).  They run once at compute time on the host; each produced block is
 bound as a jit argument, so the device program stays pure and the compiled
 executable is reused across computes.

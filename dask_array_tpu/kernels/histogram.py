@@ -1,49 +1,22 @@
-"""Fused multi-bin histogram / bincount: tiled compare-accumulate scan.
+"""Histogram counts by a tiled compare-accumulate scan.
 
-WHY NOT XLA's OWN LOWERING: ``jnp.histogram``/``jnp.bincount`` lower to a
-scatter-add, which serializes on TPU — measured 6.5 s for 64M float32 /
-256 bins on v5e (~0.04 GB/s).  This formulation replaces the scatter with
-a compare-accumulate sweep that is pure VPU work: the data streams through
-a ``lax.scan`` in 128K-element tiles, each tile is compared against every
-bin edge at once (``d[:, None] < e[None, :]``), the per-tile partial
-counts accumulate in the scan carry, and the per-bin counts fall out as a
-first difference of the cumulative counts.  numpy's last-bin-inclusive
-semantics come from replacing the final edge with ``nextafter(e_last,
-+inf)`` so ``<`` acts as ``<=`` there.
+``jnp.histogram`` lowers to a searchsorted plus a scatter-add into the
+bins.  This formulation has no scatter: the data streams through a
+``lax.scan`` in tiles, each tile is compared against every bin edge at
+once (``d[:, None] < e[None, :]``), the per-tile counts of values below
+each edge accumulate in the scan carry, and the per-bin counts fall out as
+the first difference of those cumulative counts.  numpy's closed last bin
+adds the values equal to the last edge.
 
-HISTORY — this replaced a hand-written Pallas kernel (win-or-delete
-discipline, SURVEY.md §2.5): the Pallas compare-accumulate ran the same
-sweep in 123 ms because its 3-D broadcast compare forced Mosaic vector
-relayouts, while XLA fuses this scan body's compare straight into the
-tile reduction with native (8, 128) layouts — measured 17.7 ms for
-64M x 256 on v5e, ~7x the Pallas kernel and ~370x the scatter.  A
-per-edge-register privatized Pallas variant (the theoretical-bound
-design) SIGABRTs this platform's remote Mosaic compiler.  Decision
-record: bench/README.md.
+Measured on an H100 80GB HBM3 at a 400 W power limit, 2^28 elements and
+256 bins (``bench/probe_histogram.py``; XLA lane in brackets): f32 28.4 ms
+(84.1), f64 61.7 ms (107.7), int64 data with int64 edges 62.4 ms (78.8),
+f32 with f32 weights 39.2 ms (84.1).  ``jnp.bincount`` beat the scan
+(43.8 ms against 62.3), so bincount stays on XLA.
 
-f64 inputs run the same sweep on a TWO-FLOAT split: ``d`` is carried as
-``(hi, lo) = (f32(d), f32(d - hi))`` and compared lexicographically —
-pure 32-bit VPU ops, exact to ~2^-49 relative (the TPU has no 64-bit
-ALU and its f64 emulation itself carries ~1e-15 ≈ 2^-50 error, see
-``ops/_bitsafe.py``).
-
-64-bit integers (VERDICT r3 #4) take one of two EXACT paths:
-  * int/int: when both data and edges are integer dtypes numpy compares
-    in the integer result type, so the sweep compares in int64/uint64
-    directly (XLA emulates 64-bit compares as i32 pairs on the VPU) —
-    exact at every magnitude.  Padding uses TYPE_MAX, which strict ``<``
-    self-excludes; the inclusive last bin becomes ``< e_last + 1`` (the
-    single edge value where that overflows, ``e_last == TYPE_MAX``,
-    declines to the XLA lane).
-  * int64 mixed with floats: numpy promotes BOTH sides to f64 (lossy past
-    2^53 — numpy included), so parity means comparing ``f64(x)`` exactly.
-    A THREE-FLOAT split ``(hi, mid, lo)`` represents any f64 exactly
-    (24+24+5 mantissa bits), making the lexicographic compare bit-exact
-    with numpy's own f64 comparison at all magnitudes — no range gate.
-
-Parity role: the reference's ``HistogramBinned`` tree-sum
-(``/root/reference/dask_array/_histogram.py:41``) — here ONE fused sweep
-instead of a per-block bincount + tree.
+Comparisons run in the dtype numpy compares in: the integer result type
+when data and edges are both integers, float32 when both are exactly
+representable in float32, float64 otherwise.
 """
 
 from __future__ import annotations
@@ -52,309 +25,111 @@ import functools
 
 import numpy as np
 
-# elements per scan tile: 128K f32 = 512 KiB, far under VMEM, large enough
-# that the (TILE, n_edges) compare block amortizes loop overhead (measured
-# best among 32K/64K/128K/256K on v5e: 20.9 ms vs 31/31/23)
-_TILE = 128 * 1024
+# elements per scan tile, by the itemsize of the comparison dtype (same
+# measurement): 1M-element tiles took 28.4 ms for f32 against 41.3 ms at
+# 128K, while 64-bit compares at 1M took 520 ms against 61.7 ms at 128K
+_TILE_32 = 1 << 20
+_TILE_64 = 1 << 17
 
 
 def _round_up(x, m):
     return -(-x // m) * m
 
 
+def _f32_exact(dt) -> bool:
+    """Every value of ``dt`` is a float32 value (so f32 compares are exact)."""
+    import jax.numpy as jnp
+
+    dt = np.dtype(dt)
+    if dt.kind == "b" or (dt.kind in "iu" and dt.itemsize <= 2):
+        return True
+    return dt in (np.dtype("f4"), np.dtype("f2")) or dt == jnp.bfloat16.dtype
+
+
+def compare_dtype(data_dtype, edges_dtype):
+    """The dtype the scan compares in, or ``None`` where it declines."""
+    d, e = np.dtype(data_dtype), np.dtype(edges_dtype)
+    if d.kind in "iub" and e.kind in "iub":
+        rt = np.result_type(d, e)
+        if rt.kind in "iu":
+            return rt
+        if rt.kind == "b":
+            return None
+    if d.kind not in "iubf" or e.kind not in "iubf":
+        return None
+    return np.dtype("f4") if _f32_exact(d) and _f32_exact(e) else np.dtype("f8")
+
+
 @functools.partial(
-    __import__("jax").jit,
-    static_argnames=("nbins", "weighted", "exact"),
+    __import__("jax").jit, static_argnames=("tile", "weighted", "n_pad_extra")
 )
-def _histogram_scan(
-    data, data_mid, data_lo, edges, edges_mid, edges_lo, weights,
-    nbins, weighted, exact,
-):
-    """``exact``: "f32" direct compare | "tf2" two-float | "tf3" three-float
-    | "int" direct 64-bit integer compare."""
+def _histogram_scan(data, edges, weights, tile, weighted, n_pad_extra):
     import jax
     import jax.numpy as jnp
 
-    n_tiles = data.shape[0] // _TILE
-    d_hi = data.reshape(n_tiles, _TILE)
-    xs = (d_hi,)
-    if exact == "tf3":
-        xs += (data_mid.reshape(n_tiles, _TILE),)
-    if exact in ("tf2", "tf3"):
-        xs += (data_lo.reshape(n_tiles, _TILE),)
+    n_tiles = data.shape[0] // tile
+    xs = (data.reshape(n_tiles, tile),)
     if weighted:
-        xs += (weights.reshape(n_tiles, _TILE),)
-
-    # unweighted counts accumulate in int32 (exact up to 2^31 per bin,
-    # where float32 would silently lose counts past 2^24); weighted tiles
-    # reduce in f32 but the cross-tile carry is f64 (a 64M-element f32
-    # running sum drifts ~4e-2 in the tail bins, and the carry is only
-    # n_edges wide so the emulated-f64 adds are free)
+        xs += (weights.reshape(n_tiles, tile),)
+    # counts accumulate in int32 (exact to 2^31 per bin); weights in f64, so
+    # the first difference of two large cumulative sums keeps small bins
     acc_dtype = jnp.float64 if weighted else jnp.int32
+    last = edges.shape[0] - 1
 
-    def body(acc, tile):
-        it = iter(tile)
-        d = next(it)
-        if exact == "tf3":
-            # three-float lexicographic compare — bit-exact f64 order
-            # (NaN: every leg false)
-            dm = next(it)
-            dl = next(it)
-            hi_lt = d[:, None] < edges[None, :]
-            hi_eq = d[:, None] == edges[None, :]
-            mid_lt = dm[:, None] < edges_mid[None, :]
-            mid_eq = dm[:, None] == edges_mid[None, :]
-            lo_lt = dl[:, None] < edges_lo[None, :]
-            cmp = hi_lt | (hi_eq & (mid_lt | (mid_eq & lo_lt)))
-        elif exact == "tf2":
-            # two-float lexicographic compare (NaN: both legs false)
-            dl = next(it)
-            hi_lt = d[:, None] < edges[None, :]
-            hi_eq = d[:, None] == edges[None, :]
-            lo_lt = dl[:, None] < edges_lo[None, :]
-            cmp = hi_lt | (hi_eq & lo_lt)
-        else:
-            # "f32" and "int": the dtype itself carries the exactness
-            cmp = d[:, None] < edges[None, :]
+    def body(acc, tile_xs):
+        d = tile_xs[0]
+        below = d[:, None] < edges[None, :]
+        at_last = d == edges[last]  # the closed last bin
         if weighted:
-            w = next(it)
-            part = jnp.sum(jnp.where(cmp, w[:, None], 0.0), axis=0).astype(acc_dtype)
+            w = tile_xs[1].astype(acc_dtype)
+            part = jnp.sum(jnp.where(below, w[:, None], 0), axis=0)
+            part = part.at[last].add(jnp.sum(jnp.where(at_last, w, 0)))
         else:
-            part = jnp.sum(cmp, axis=0, dtype=acc_dtype)
+            part = jnp.sum(below, axis=0, dtype=acc_dtype)
+            part = part.at[last].add(jnp.sum(at_last, dtype=acc_dtype))
         return acc + part, None
 
-    init = jnp.zeros((edges.shape[0],), acc_dtype)
-    cumulative, _ = jax.lax.scan(body, init, xs)
-    out = cumulative[1:nbins + 1] - cumulative[:nbins]
-    return out.astype(jnp.float32) if weighted else out
+    cumulative, _ = jax.lax.scan(body, jnp.zeros(edges.shape, acc_dtype), xs)
+    if not weighted:
+        # integer padding is the type's maximum, which the last edge may equal
+        pad_hits = (edges[last] == data[-1]) if n_pad_extra else False
+        cumulative = cumulative.at[last].add(
+            -jnp.asarray(n_pad_extra * pad_hits, acc_dtype)
+        )
+    return cumulative[1:] - cumulative[:-1]
 
 
-def _two_float_split(x64):
-    """(hi, lo) f32 pair of an f64 value: hi = f32(x), lo = f32(x - hi).
+def histogram(data, edges, weights=None):
+    """Histogram of ``data`` over ``edges`` with numpy's semantics.
 
-    Lexicographic (hi, lo) order matches f64 order to ~2^-49 relative —
-    the platform's own f64 emulation error floor.  NaN splits to
-    (NaN, NaN), which self-excludes in the kernel's comparisons; ±inf
-    keeps lo = 0 (inf - inf would be NaN and break inf-edge equality).
+    Bins are half-open except the closed last one; NaN and out-of-range
+    values are not counted.  ``data`` may have any shape.  Returns int32
+    counts, or float64 sums when ``weights`` is given, of length
+    ``len(edges) - 1``.  Returns ``None`` where the scan declines and the
+    caller uses ``jnp.histogram``: weights not exactly float32, or dtypes
+    numpy would not compare as numbers.
     """
     import jax.numpy as jnp
 
-    hi = x64.astype(jnp.float32)
-    lo = (x64 - hi.astype(x64.dtype)).astype(jnp.float32)
-    lo = jnp.where(jnp.isinf(hi), jnp.float32(0), lo)
-    return hi, lo
+    cd = compare_dtype(data.dtype, edges.dtype)
+    weighted = weights is not None
+    if cd is None or (weighted and not _f32_exact(weights.dtype)):
+        return None
+    # padding never counts: NaN compares false, and the integer maximum is
+    # below no edge (the scan takes it back out of a last edge it equals)
+    pad = np.iinfo(cd).max if cd.kind in "iu" else np.nan
 
-
-def _three_float_split(x64):
-    """(hi, mid, lo) f32 triple representing an f64 value EXACTLY.
-
-    A 53-bit mantissa splits as 24 (hi) + 24 (mid) + ≤5 (lo) bits: each
-    residual ``x - hi`` / ``x - hi - mid`` is exactly representable in f64
-    (nearby-value subtraction), and the final residual has ≤5 significant
-    bits so ``lo = f32(r2)`` rounds nothing.  Lexicographic (hi, mid, lo)
-    order therefore matches f64 order bit-for-bit — the int64 mixed-with-
-    float histogram path rides this for numpy parity at every magnitude.
-    """
-    import jax.numpy as jnp
-
-    hi = x64.astype(jnp.float32)
-    r1 = x64 - hi.astype(x64.dtype)
-    mid = r1.astype(jnp.float32)
-    r2 = r1 - mid.astype(x64.dtype)
-    lo = r2.astype(jnp.float32)
-    inf = jnp.isinf(hi)
-    mid = jnp.where(inf, jnp.float32(0), mid)
-    lo = jnp.where(inf | jnp.isinf(mid), jnp.float32(0), lo)
-    return hi, mid, lo
-
-
-@functools.partial(
-    __import__("jax").jit, static_argnames=("nbins",)
-)
-def _int_histogram_scan(data, edges_excl, nbins):
-    """Exact 64-bit integer compare sweep (both operands integer dtypes).
-
-    XLA's own int64 emulation (i32 word pairs) handles the compare — a
-    hand-rolled (hi, lo) 32-bit word split measured SLOWER same-session
-    (40.8 vs 27.3 ms for 64M x 256 on v5e; the split adds a second data
-    stream XLA's emulation avoids).
-
-    ``edges_excl``: edges in the integer result type with the LAST entry
-    already replaced by ``e_last + 1`` (strict ``<`` realizes numpy's
-    inclusive last bin); the caller guarantees that bump cannot overflow.
-    Padding with TYPE_MAX self-excludes under strict ``<``.
-    """
-    import jax
-    import jax.numpy as jnp
-
-    n_tiles = data.shape[0] // _TILE
-    d = data.reshape(n_tiles, _TILE)
-
-    def body(acc, tile):
-        cmp = tile[:, None] < edges_excl[None, :]
-        return acc + jnp.sum(cmp, axis=0, dtype=jnp.int32), None
-
-    init = jnp.zeros((edges_excl.shape[0],), jnp.int32)
-    cumulative, _ = jax.lax.scan(body, init, d)
-    return cumulative[1:nbins + 1] - cumulative[:nbins]
-
-
-def histogram(data, edges, weights=None, *, interpret=False):
-    """Histogram counts of ``data`` over ``edges`` (numpy semantics:
-    half-open bins, last bin closed, NaN/out-of-range excluded).
-
-    ``data`` any shape (flattened).  Routing mirrors numpy's own comparison
-    domain (``np.result_type(data, edges)``): f32-exact dtypes compare
-    directly; f64 (and 32-bit ints) run the two-float path; 64-bit-int /
-    float mixes run the bit-exact THREE-float path; int/int pairs with a
-    64-bit result compare in the integer type itself.  Returns counts of
-    length ``len(edges) - 1`` (cast at the call site), or ``None`` when
-    the one unrepresentable corner declines (integer ``e_last == TYPE_MAX``,
-    or a 64-bit int/int pair whose edges are not host-concrete) — callers
-    fall back to the XLA lane, which is slow but never wrong.  ``interpret``
-    is accepted for API compatibility with the retired Pallas kernel and
-    ignored — the scan formulation runs natively on every backend.
-    """
-    import jax.numpy as jnp
-
-    del interpret
     data = jnp.ravel(data)
     n = data.size
-    nbins = int(edges.shape[0]) - 1
-    n_pad = max(_round_up(n, _TILE), _TILE)
-
-    d_dt = np.dtype(data.dtype)
-    e_dt = np.dtype(edges.dtype)
-    int_pair = d_dt.kind in "iub" and e_dt.kind in "iub"
-    rt = np.result_type(d_dt, e_dt) if int_pair else np.dtype("f8")
-
-    if int_pair and rt.kind in "iu" and rt.itemsize == 8:
-        # exact integer compare (numpy compares int/int pairs in the
-        # integer result type — f64 promotion would diverge past 2^53)
-        if not isinstance(edges, np.ndarray):
-            return None  # traced edges: the +1 bump is not host-checkable
-        e_int = edges.astype(rt)
-        if int(e_int[nbins]) >= np.iinfo(rt).max:
-            return None  # e_last + 1 would overflow
-        e_excl = e_int.copy()
-        e_excl[nbins] += 1  # strict `<` realizes the inclusive last bin
-        pad = np.iinfo(rt).max  # strict `<` self-excludes TYPE_MAX
-        flat = jnp.full((n_pad,), pad, dtype=rt).at[:n].set(data.astype(rt))
-        return _int_histogram_scan(flat, jnp.asarray(e_excl), nbins)
-
-    def _exact_level(dt):
-        dt = np.dtype(dt)
-        if dt.kind in "iu":
-            # 32-bit ints exceed f32's 2^24 exact range but fit the
-            # two-float path's ~2^48; 64-bit ints promote (lossily, like
-            # numpy) to f64 and need the bit-exact three-float compare
-            if dt.itemsize >= 8:
-                return "tf3"
-            return "tf2" if dt.itemsize >= 4 else "f32"
-        if dt.itemsize > 4:
-            return "tf2"
-        return "f32"
-
-    levels = {"f32": 0, "tf2": 1, "tf3": 2}
-    exact = max(
-        (_exact_level(d_dt), _exact_level(e_dt)), key=levels.__getitem__
-    )
-
-    if exact in ("tf2", "tf3"):
-        three = exact == "tf3"
-        d64 = data.astype(jnp.float64)
-        if three:
-            dh, dm, dl = _three_float_split(d64)
-        else:
-            dh, dl = _two_float_split(d64)
-            dm = dh
-        # NaN padding self-excludes (NaN < e is False for every edge)
-        flat_h = jnp.full((n_pad,), jnp.nan, dtype=jnp.float32).at[:n].set(dh)
-        flat_m = jnp.full((n_pad,), jnp.nan, dtype=jnp.float32).at[:n].set(dm) if three else flat_h
-        flat_l = jnp.full((n_pad,), jnp.nan, dtype=jnp.float32).at[:n].set(dl)
-
-        e64 = jnp.asarray(edges, dtype=jnp.float64)
-        if three:
-            eh, em, el = _three_float_split(e64)
-        else:
-            eh, el = _two_float_split(e64)
-            em = eh
-        # last edge: bump the LOWEST word so `<` acts as `<=` there (numpy's
-        # inclusive last bin) without moving the higher words.  The bump must
-        # be a NORMAL f32 (subnormals flush to zero in the VPU compare), and
-        # min-normal (2^-126) is still far below any real f64 low-word gap
-        tiny = jnp.float32(np.finfo(np.float32).tiny)
-        bumped = jnp.nextafter(el[nbins], jnp.float32(jnp.inf))
-        bumped = jnp.where(jnp.abs(bumped) < tiny, jnp.maximum(el[nbins], 0) + tiny, bumped)
-        el = el.at[nbins].set(bumped)
-        edges_row, edges_mid_row, edges_lo_row = eh, em, el
-        data_flat, data_mid_flat, data_lo_flat = flat_h, flat_m, flat_l
-    else:
-        data_flat = jnp.full((n_pad,), jnp.nan, dtype=jnp.float32)
-        data_flat = data_flat.at[:n].set(data.astype(jnp.float32))
-        data_mid_flat = data_lo_flat = data_flat  # ignored
-
-        e = jnp.asarray(edges, dtype=jnp.float32)
-        # last edge -> nextafter so `<` realizes numpy's inclusive last bin
-        edges_row = e.at[nbins].set(jnp.nextafter(e[nbins], jnp.float32(jnp.inf)))
-        edges_mid_row = edges_lo_row = edges_row  # ignored
-
-    weighted = weights is not None
+    tile = _TILE_32 if cd.itemsize <= 4 else _TILE_64
+    tile = min(tile, _round_up(max(n, 1), 1024))
+    n_pad = _round_up(max(n, 1), tile)
+    flat = jnp.full((n_pad,), pad, dtype=cd).at[:n].set(data.astype(cd))
+    w = None
     if weighted:
-        wflat = jnp.zeros((n_pad,), dtype=jnp.float32)
-        wflat = wflat.at[:n].set(jnp.ravel(weights).astype(jnp.float32))
-    else:
-        wflat = data_flat  # ignored
-
+        w = jnp.zeros((n_pad,), dtype=jnp.float32).at[:n].set(
+            jnp.ravel(weights).astype(jnp.float32)
+        )
     return _histogram_scan(
-        data_flat, data_mid_flat, data_lo_flat,
-        edges_row, edges_mid_row, edges_lo_row, wflat,
-        nbins, weighted, exact,
+        flat, jnp.asarray(edges).astype(cd), w, tile, weighted, n_pad - n
     )
-
-
-def use_pallas_histogram(dtype, weights_dtype=None):
-    """Routing policy (config ``tpu.histogram-kernel``: auto|pallas|xla).
-
-    auto: the fused compare-accumulate scan engages on TPU for f32-exact
-    inputs (direct compare) and for f64 (two-float compare); CPU stays on
-    ``jnp.histogram`` (no scatter pathology there).  ``pallas`` (name kept
-    for config compatibility; the formulation is an XLA scan now) forces
-    the scan on any backend — tests use it to exercise the kernel path on
-    the CPU mesh.  f64 WEIGHTS stay on XLA: the scan accumulates weights
-    in f32, which loses precision on large sums.
-
-    Returns ``(enabled, interpret)``; ``interpret`` is always False now
-    (retained so call sites keep a stable signature).
-    """
-    import jax
-
-    from dask_array_tpu import config
-
-    mode = config.get("tpu.histogram-kernel", "auto")
-    if mode == "xla":
-        return False, False
-    import jax.numpy as jnp
-
-    def f32_exact(d):
-        d = np.dtype(d)
-        if d.kind == "b" or (d.kind in "iu" and d.itemsize <= 2):
-            return True  # bool / small ints are exact f32 values
-        return d in (np.dtype("f4"), np.dtype("f2")) or d == jnp.bfloat16.dtype
-
-    def supported(d):
-        d = np.dtype(d)
-        if d.kind in "iu":
-            # 32-bit ints: exact on the two-float path; 64-bit ints: exact
-            # on the integer-compare / three-float paths (the one
-            # unrepresentable corner declines inside the kernel itself)
-            return True
-        return f32_exact(d) or d == np.dtype("f8")
-
-    ok_dtype = supported(dtype)
-    if weights_dtype is not None and not f32_exact(weights_dtype):
-        ok_dtype = False
-    on_tpu = jax.default_backend() not in ("cpu",)
-    if mode == "pallas":
-        return True, False
-    return (ok_dtype and on_tpu), False

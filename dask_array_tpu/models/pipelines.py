@@ -54,31 +54,17 @@ def blocked_matmul(n=8192, chunk=1024, dtype="bfloat16", seed=0):
     return a @ b
 
 
-def stencil2d(n=4096, chunk=1024, dtype="float32", seed=0, form="auto", persist=False):
+def stencil2d(n=4096, chunk=1024, dtype="float32", seed=0, form="slices", persist=False):
     """depth-1 map_overlap Laplace stencil (BASELINE config 4).
 
-    ``form="auto"`` (default since round 4) picks the fastest available
-    formulation: the ROLL form when the Pallas band kernel will engage
-    (``tpu.stencil-kernel`` auto-probe — the kernel runs the roll func on
-    VMEM bands at the copy-stream bound, measured 0.233 ms / 575 GB/s vs
-    the best XLA form's 0.540 ms on 4096² f32), otherwise the shifted-
-    slices form (``trim=False``, ~1.9x faster than roll under plain XLA:
-    215 vs 114 GB/s, bench/probe_stencil.py).  ``form="slices"`` /
-    ``form="roll"`` force a formulation.
+    ``form="slices"``: the function takes the 1-cell ghost ring and returns
+    the interior from five shifted windows (``trim=False``).
+    ``form="roll"``: the function rolls the padded block and map_overlap
+    trims the ring.
     """
     import jax.numpy as jnp
 
     import dask_array_tpu as da
-
-    if form == "auto":
-        from dask_array_tpu import config
-        from dask_array_tpu.kernels.stencil import mosaic_accepts_band
-
-        setting = config.get("tpu.stencil-kernel", "auto")
-        kernel_on = setting not in ("off", False, None) and (
-            setting == "on" or (setting == "auto" and mosaic_accepts_band())
-        )
-        form = "roll" if kernel_on else "slices"
 
     x = da.random.default_rng(seed).standard_normal((n, n), dtype=dtype, chunks=chunk)
     if persist:
@@ -121,9 +107,9 @@ def tall_skinny_svd(rows=1_000_000, cols=128, chunk_rows=100_000, dtype="float32
 def rechunk_relayout(n=8192, chunk=1024, dtype="float32", seed=0, persist=False):
     """Rows->cols block relayout of a transposed array (BASELINE metric 2).
 
-    On one chip this is the HBM-bandwidth-bound form of the rechunk
+    On one chip this is the memory-bandwidth-bound form of the rechunk
     boundary (one physical transpose: read + write of every byte); on a
-    mesh the same expression emits an ICI ``all-to-all``
+    mesh the same expression emits an ``all-to-all``
     (``parallel/collectives.py:mesh_collective_relayout``, proven by
     ``tests/test_rechunk_collective.py``).  Report effective GB/s as
     ``2 * nbytes / t`` against the HBM roofline.

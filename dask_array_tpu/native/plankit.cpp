@@ -290,7 +290,7 @@ int64_t expand_grid(
 // ===========================================================================
 // plan records: versioned binary snapshot of a lowered expression plan.
 //
-// The TPU-native analog of the reference's Rust records grammar
+// The XLA-native analog of the reference's Rust records grammar
 // (/root/reference/crates/dask-array-python/src/common.rs:436-459,
 // RECORDS_PROTOCOL_VERSION): where the reference ships per-layer task
 // records to its scheduler, this runtime has no scheduler — the plan

@@ -3,7 +3,7 @@
 Parity: ``/root/reference/dask_array/slicing/`` (``_basic.py`` int-array
 routing, ``_bool_index.py``, ``_vindex.py``) — fresh implementation.
 
-TPU notes: integer-array take is a dense gather (XLA ``gather`` HLO);
+Device notes: integer-array take is a dense gather (XLA ``gather`` HLO);
 boolean masking produces data-dependent shapes, so those nodes are marked
 untraceable and the executor computes them eagerly (the reference's
 "nan chunks" contract: metadata stays unknown until compute_chunk_sizes).

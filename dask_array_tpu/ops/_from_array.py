@@ -4,7 +4,7 @@ Parity: ``FromArray`` in ``/root/reference/dask_array/io/_from_array.py``
 (including its deferred ``_region`` slicing so pushed-down slices shrink
 what is actually read) — fresh implementation.
 
-TPU-first: the leaf's buffer is bound as a *jit argument*, so the same
+XLA-first: the leaf's buffer is bound as a *jit argument*, so the same
 compiled executable is reused across calls, the host->device transfer moves
 only the pushed-down region, and on a mesh the buffer is device_put with a
 chunk-aligned NamedSharding before the call.

@@ -49,36 +49,20 @@ class Histogram(ArrayExpr):
         jnp = _jnp()
         dense = ctx.build(self.array).dense().ravel()
         if isinstance(self.bins, ArrayExpr):
-            edges_host = None
             edges = ctx.build(self.bins).dense()
         else:
-            # keep the HOST copy: the exact-integer path needs concrete
-            # edge values for its last-edge bump and overflow decline
-            edges_host = np.asarray(self.bins)
-            edges = jnp.asarray(edges_host)
+            edges = jnp.asarray(np.asarray(self.bins))
         w = ctx.build(self.weights).dense().ravel() if isinstance(self.weights, ArrayExpr) else None
 
-        from dask_array_tpu.kernels.histogram import histogram as pallas_hist
-        from dask_array_tpu.kernels.histogram import use_pallas_histogram
+        from dask_array_tpu.kernels.histogram import histogram as scan_hist
 
-        use_pallas, interpret = use_pallas_histogram(
-            dense.dtype, None if w is None else w.dtype
-        )
-        counts = None
-        if use_pallas:
-            # XLA's histogram is a serialized scatter on TPU (measured
-            # ~6 s for 64M/256 bins); the fused compare-accumulate scan
-            # replaces it (kernels/histogram.py).  None = the kernel's
-            # one unrepresentable corner declined — fall to the XLA lane
-            counts = pallas_hist(
-                dense, edges if edges_host is None else edges_host, w,
-                interpret=interpret,
-            )
+        # the compare-accumulate scan (kernels/histogram.py); None where it
+        # declines, and jnp.histogram answers
+        counts = scan_hist(dense, edges, w)
         if counts is not None:
             if self.density:
-                widths = jnp.diff(edges.astype(jnp.float32))
-                total = jnp.sum(counts.astype(jnp.float32))
-                hist = counts.astype(jnp.float32) / widths / total
+                c = counts.astype(jnp.float64)
+                hist = c / jnp.diff(edges.astype(jnp.float64)) / jnp.sum(c)
             else:
                 hist = counts
         else:

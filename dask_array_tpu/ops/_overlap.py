@@ -4,7 +4,7 @@ Parity: ``/root/reference/dask_array/_overlap.py`` (``OverlapInternal``,
 boundary modes periodic/reflect/nearest/constant/none, ``map_overlap``
 pipeline, ``sliding_window_view``, ``push``) — fresh implementation.
 
-TPU-first: a block-with-halo is a *slice of the boundary-extended dense
+XLA-first: a block-with-halo is a *slice of the boundary-extended dense
 array*, so inside one chip the "halo exchange" is free (XLA fuses the
 overlapping reads), and over a mesh the sharding propagation turns the
 out-of-shard reads into exactly the neighbor ppermute/collective-permute
@@ -398,7 +398,7 @@ class ShardStencil(ArrayExpr):
     inserts a collective-permute per read — correct, but a depth-1 stencil
     over 8 shards compiles to hundreds of small permutes.  This node instead
     ``shard_map``s the dense array once: each shard ring-exchanges exactly
-    one lo/hi halo per sharded axis (TWO ppermutes — the minimal ICI
+    one lo/hi halo per sharded axis (TWO ppermutes — the minimal
     schedule, SURVEY §2.6 "halo exchange"), realizes the boundary locally on
     the edge shards, applies ``func`` to its whole shard, and trims.
 
@@ -571,37 +571,6 @@ class ShardStencil(ArrayExpr):
         return BlockView(self.chunks, dense=fn(dense))
 
 
-class BandStencil(ShardStencil):
-    """map_overlap as a Pallas band kernel (config ``tpu.stencil-kernel``).
-
-    Same locality/size-preserving contract as :class:`ShardStencil`; the
-    user function runs on VMEM-resident padded bands
-    (``kernels/stencil.py``), so its roll/shift intermediates never touch
-    HBM.  Off the happy path (mesh active, eager mode, non-TPU platform
-    without interpret), falls back to the whole-array pad→func→trim form.
-    """
-
-    _parameters = ("array", "func", "depth", "boundary", "kwargs", "_dtype", "interpret")
-
-    def _build(self, ctx):
-        if ctx.mode == "trace" and ctx.mesh is None:
-            from dask_array_tpu.kernels.stencil import band_stencil_call
-
-            view = ctx.build(self.array)
-            dense = view.dense()
-            fkw = dict(self.kwargs or ())
-            func = self.func
-            if fkw:
-                func = functools.partial(func, **fkw)
-            dep = tuple(lo for lo, _hi in self.depth)
-            bnd = tuple(self.boundary)
-            out = band_stencil_call(
-                dense, func, dep, bnd, interpret=bool(self.interpret)
-            ).astype(self._dtype)
-            return BlockView(self.chunks, dense=out)
-        return super()._build(ctx)
-
-
 def _shard_stencil_eligible(arrays, depths, bounds, trim, kwargs):
     """Route map_overlap through ShardStencil?  (opt-in method="shard")"""
     if len(arrays) != 1 or not trim:
@@ -748,30 +717,6 @@ def map_overlap(func, *args, depth=None, boundary=None, trim=True, align_arrays=
                 )
 
     from dask_array_tpu import config
-
-    from dask_array_tpu.kernels.stencil import use_band_stencil
-
-    _band_ok, _band_interp = use_band_stencil(arrays, depths, bounds, trim)
-    if _band_ok:
-        from dask_array_tpu._blockwise import _normalize_kwargs
-        from dask_array_tpu._collection import new_collection
-        from dask_array_tpu._expr import compute_meta
-
-        a = arrays[0]
-        dep = tuple(depths[0][ax] for ax in range(a.ndim))
-        bd = tuple(bounds[0][ax] for ax in range(a.ndim))
-        kw = dict(kwargs)
-        dtype = kw.pop("dtype", None)
-        fkw = {k: v for k, v in kw.items() if k not in ("name", "token")}
-        if dtype is None:
-            meta = compute_meta(func, a.ndim, a.expr, **fkw)
-            dtype = getattr(meta, "dtype", a.dtype) if meta is not None else a.dtype
-        return new_collection(
-            BandStencil(
-                a.expr, func, dep, bd, _normalize_kwargs(fkw), np.dtype(dtype),
-                bool(_band_interp),
-            )
-        )
 
     if config.get("tpu.overlap-method", "auto") == "shard" and _shard_stencil_eligible(
         arrays, depths, bounds, trim, kwargs

@@ -3,7 +3,7 @@
 Parity: ``/root/reference/dask_array/manipulation/_reshape.py``
 (``reshape_rechunk`` planning + ``ReshapeLowered``) — fresh implementation.
 
-TPU-first: inside the trace a reshape is free (XLA relayouts lazily); the
+XLA-first: inside the trace a reshape is free (XLA relayouts lazily); the
 planning below exists to (a) define the output chunk grid the way dask
 does, and (b) insert the pre-rechunk that makes the block mapping exact so
 per-block consumers (map_blocks etc.) see the same blocks as the reference.

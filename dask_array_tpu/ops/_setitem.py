@@ -2,7 +2,7 @@
 
 Parity: ``SetItem`` (``/root/reference/dask_array/slicing/_setitem.py``).
 ``Array.__setitem__`` swaps the collection's expression for this node (the
-underlying data is never mutated — functional update, which on TPU lowers
+underlying data is never mutated — functional update, which on the device lowers
 to an XLA dynamic-update-slice / scatter that the compiler performs
 in-place when the buffer is donated).
 """

@@ -6,9 +6,9 @@ bottleneck ``move_*`` semantics incl. ``min_count``) and the
 ``SlidingWindowView -> Reduction`` fusion (``_overlap.py:457-623``) — fresh
 implementation.
 
-TPU-first: the reference decomposes into banded per-block kernels
-(suffix-scan + covered totals + prefix-scan).  On TPU the whole moving
-window is ONE ``lax.reduce_window`` — the hardware-native windowed
+XLA-first: the reference decomposes into banded per-block kernels
+(suffix-scan + covered totals + prefix-scan).  Here the whole moving
+window is ONE ``lax.reduce_window`` — XLA's native windowed
 reduction the banded plan emulates — so the fusion rewrite collapses
 ``reduce(sliding_window_view(x))`` into a single node and no window
 dimension is ever materialized.

@@ -5,7 +5,7 @@ host numpy end to end: their expressions are untraceable
 (``_executor.node_traceable`` routes the program through the eager lane),
 leaves skip ``device_put``, and per-block kernels run plain numpy.  Field
 access extracts a NUMERIC array, after which downstream ops are ordinary
-TPU-path expressions again.
+device-path expressions again.
 
 Parity: the reference inherits structured arrays for free through its
 numpy chunk kernels — user-facing surface in

@@ -1,7 +1,7 @@
 """Dtype-reinterpret views (Array.view / chunk.view).
 
 Parity: the ``view`` routine (``/root/reference/dask_array/_chunk.py``
-``view``) — on TPU a view is a ``lax.bitcast_convert_type`` (no data
+``view``) — on the device a view is a ``lax.bitcast_convert_type`` (no data
 movement), with the trailing axis resized when the itemsizes differ.
 """
 
@@ -70,7 +70,7 @@ def view(x, dtype=None, order="C"):
     from dask_array_tpu._collection import Array, new_collection
 
     if order != "C":
-        raise NotImplementedError("view(order='F') is not supported on TPU")
+        raise NotImplementedError("view(order='F') is not supported (C layout only)")
     expr = x.expr if isinstance(x, Array) else x
     if dtype is None:
         dtype = expr.dtype

@@ -4,7 +4,7 @@ Parity: ``/root/reference/dask_array/creation/`` (``BroadcastTrick``
 constant leaves with slice/rechunk/shuffle absorption, ``Arange``,
 ``Linspace``, ``Eye``...) — fresh implementation.
 
-TPU-first: constant leaves trace to a scalar broadcast (free in XLA — no
+XLA-first: constant leaves trace to a scalar broadcast (free in XLA — no
 blocks are ever materialized until a consumer needs them); ranges trace to
 ``jnp.arange``-style iotas which XLA generates on-device, so creation never
 touches the host.
@@ -64,7 +64,7 @@ class BroadcastTrick(ArrayExpr):
                 if fill is None
                 else np.full(shape, fill, dtype=self._dtype)
             )
-        elif fill is None:  # "empty": contents unspecified; zeros on TPU
+        elif fill is None:  # "empty": contents unspecified; zeros here
             dense = jnp.zeros(shape, dtype=self._dtype)
         else:
             dense = jnp.full(shape, fill, dtype=self._dtype)
@@ -199,7 +199,7 @@ def _like(maker, a, dtype=None, chunks=None, shape=None, **kw):
 def _check_like_order(order):
     # device arrays are C-layout; 'F' would silently lie about strides
     if order not in (None, "C", "K", "A"):
-        raise NotImplementedError(f"order={order!r} is not supported on TPU (C layout only)")
+        raise NotImplementedError(f"order={order!r} is not supported (C layout only)")
 
 
 def ones_like(a, dtype=None, order="C", chunks=None, name=None, shape=None):

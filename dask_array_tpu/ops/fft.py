@@ -2,7 +2,7 @@
 
 Parity: ``/root/reference/dask_array/fft.py`` (``fft_wrap`` factory; the
 FFT axis must be single-chunk, matching the reference's contract) — fresh
-implementation.  TPU: XLA lowers these to on-device FFT kernels.
+implementation.  XLA lowers these to on-device FFT kernels.
 """
 
 from __future__ import annotations

@@ -3,11 +3,11 @@
 Parity: ``/root/reference/dask_array/linalg/_tensordot.py`` and
 ``_einsum.py`` — fresh implementation.
 
-TPU-first: the reference lowers a contraction to per-block-pair matmul
+XLA-first: the reference lowers a contraction to per-block-pair matmul
 tasks plus a sum tree (``blockwise(adjust_chunks={k:1}) + .sum()``).  Here
 the whole contraction is ONE ``dot_general`` in the traced program: XLA
-tiles it onto the MXU at peak throughput, and when the contracted axis is
-sharded over a mesh it inserts the psum over ICI itself — no rechunk
+tiles it onto the matrix units, and when the contracted axis is
+sharded over a mesh it inserts the psum over the mesh itself — no rechunk
 insertion or partial-sum blocks needed.  Chunk metadata is still computed
 dask-style so downstream per-block consumers see the expected grid.
 """
@@ -85,7 +85,7 @@ def parse_einsum(subscripts: str, ndims: list[int]):
 
 
 class Einsum(ArrayExpr):
-    """General contraction; dense ``jnp.einsum`` on the MXU."""
+    """General contraction; dense ``jnp.einsum``."""
 
     _parameters = ("subscripts", "out_labels", "input_labels", "kwargs")
     _defaults = {"kwargs": ()}

@@ -4,7 +4,7 @@ Parity: ``/root/reference/dask_array/random/`` (``Generator`` with ~30
 distributions over a fusable ``Random(IO)`` leaf with per-block spawned
 bit-generators, ``random/_expr.py:29``) — fresh implementation.
 
-TPU-first: each block draws from ``jax.random.fold_in(base_key,
+XLA-first: each block draws from ``jax.random.fold_in(base_key,
 linear_block_index)`` — the counter-based analog of the reference's
 spawned generators: values are deterministic per (seed, chunk-grid),
 independent of execution order, and generated on-device (no host RNG, no
@@ -82,7 +82,7 @@ class Random(ArrayExpr):
             dtype == np.float64
             and config.get("tpu.random-precision", "float32") == "float32"
         ):
-            # f64 transcendentals (erfinv, log) are software-emulated on TPU
+            # tpu.random-precision: sample at f32 and upcast
             gen_dtype = np.dtype("float32")
 
         # One kernel call for the WHOLE array.  Unlike the reference's

@@ -4,9 +4,9 @@ Parity: ``/root/reference/dask_array/reductions/`` (``reduction()``,
 ``Reduction``/``PartialReduce``, typed subclasses, arg-reductions,
 cumulative scans, median/quantile) — fresh implementation.
 
-TPU-first: a *typed* reduction (sum/mean/max/...) lowers to ONE dense XLA
+XLA-first: a *typed* reduction (sum/mean/max/...) lowers to ONE dense XLA
 reduce — inside a jitted program XLA already emits the optimal multi-pass
-reduction (and, over a sharded axis, a psum tree on ICI), so the
+reduction (and, over a sharded axis, a psum tree), so the
 reference's ``split_every`` PartialReduce cascade would only hide
 information from the compiler.  ``split_every`` is still accepted (tree
 shape is an execution detail here).  The generic ``reduction()`` API with
@@ -471,9 +471,7 @@ def var(a, axis=None, dtype=None, keepdims=False, ddof=0, split_every=None, out=
     (the reference's moment_chunk/moment_agg pipeline,
     ``/root/reference/dask_array/reductions/_common.py``), T and Q are
     INDEPENDENT reductions over one fused producer, so XLA multi-output
-    fusion reads the input from HBM exactly once — on TPU this is the
-    difference between ~160 GB/s and HBM-roofline reductions (bench/README
-    reduction_tree row).  The shift keeps the cancellation benign.
+    fusion reads the input from HBM exactly once.  The shift keeps the cancellation benign.
     """
     import jax.numpy as jnp
 
@@ -1228,7 +1226,7 @@ class ApproxPercentile(ArrayExpr):
     (``reductions/_percentile.py:70-149`` merge_percentiles /
     ``:52-67`` tdigest): per-chunk percentiles at an endpoint-padded q
     grid, weighted by chunk lengths, merged by sorted cumulative-count
-    interpolation.  TPU-first: chunk lengths are STATIC, so the whole
+    interpolation.  XLA-first: chunk lengths are STATIC, so the whole
     merge (sort + cumsum + interp over ``nblocks * (len(q)+2)`` values)
     traces into the one XLA program — no host-side combine step.
     """
@@ -1326,14 +1324,14 @@ def percentile(a, q, method="linear", internal_method=None, **kwargs):
     Parity: ``reductions/_percentile.py:151`` — ``interpolation=`` is the
     deprecated alias of ``method=``.  ``internal_method``:
 
-    * ``None``/``"default"``: EXACT dense percentiles (this platform's
+    * ``None``/``"default"``: EXACT dense percentiles (the
       one-program computation supersedes the approximation for most
       sizes).
     * ``"dask"`` / ``"tdigest"``: the reference's scalable approximate
       merge (per-chunk percentiles, weighted merge) — one pass per chunk,
       never materializing the concatenated array.  ``tdigest`` maps to
-      the same mergeable-summary computation (the crick dependency does
-      not exist on this platform).
+      the same mergeable-summary computation (the crick dependency is not
+      used).
     """
     import warnings
 

@@ -578,19 +578,9 @@ class Bincount(ArrayExpr):
         # eager: dense is concrete, so numpy's grow-to-max semantics apply
         length = int(max(int(dense.max()) + 1 if dense.size else 0, self.minlength or 0))
 
-        from dask_array_tpu.kernels.histogram import histogram as pallas_hist
-        from dask_array_tpu.kernels.histogram import use_pallas_histogram
-
-        use_pallas, interpret = use_pallas_histogram(
-            np.dtype("f4"), None if w is None else w.dtype
-        )
-        # the f32 path is exact for integer values < 2^24 (and counts
-        # accumulate in int32); XLA's bincount is a serialized scatter
-        if use_pallas and length and length < (1 << 24):
-            edges = jnp.arange(length + 1, dtype=jnp.float32)
-            out = pallas_hist(dense, edges, w, interpret=interpret)
-        else:
-            out = jnp.bincount(dense, weights=w, length=length)
+        # jnp.bincount's scatter-add beats the compare-accumulate scan here
+        # (kernels/histogram.py)
+        out = jnp.bincount(dense, weights=w, length=length)
         if out.dtype != self.dtype:
             out = out.astype(self.dtype)
         return BlockView(self.chunks, dense=out)

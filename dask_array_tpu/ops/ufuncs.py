@@ -156,11 +156,8 @@ def _isposinf(x):
 
 isneginf = ufunc(_isneginf, name="isneginf", nin=1)
 isposinf = ufunc(_isposinf, name="isposinf", nin=1)
-# 64-bit bitcast ufuncs: TPU-safe formulations (see ops/_bitsafe.py)
-from dask_array_tpu.ops import _bitsafe as _bs
-
-signbit = ufunc(_bs.signbit, name="signbit")
-spacing = ufunc(_bs.spacing, name="spacing")
+signbit = _make("signbit")
+spacing = _make("spacing")
 real = _make("real")
 imag = _make("imag")
 angle = _make("angle")
@@ -193,9 +190,9 @@ maximum = _make("maximum")
 minimum = _make("minimum")
 fmax = _make("fmax")
 fmin = _make("fmin")
-copysign = ufunc(_bs.copysign, name="copysign")
-nextafter = ufunc(_bs.nextafter, name="nextafter")
-ldexp = ufunc(_bs.ldexp, name="ldexp")
+copysign = _make("copysign")
+nextafter = _make("nextafter")
+ldexp = _make("ldexp")
 heaviside = _make("heaviside")
 bitwise_and = _make("bitwise_and")
 bitwise_or = _make("bitwise_or")
@@ -221,14 +218,19 @@ def clip(a, a_min=None, a_max=None, **kwargs):
     return elemwise(jnp.clip, a, a_min, a_max, **kwargs)
 
 
+def _frexp_mantissa(v):
+    return _jnp_mod.frexp(v)[0]
+
+
+def _frexp_exponent(v):
+    return _jnp_mod.frexp(v)[1]
+
+
 def frexp(x):
     """Returns (mantissa, exponent) as two lazy arrays."""
-    jnp = _jnp()
     from dask_array_tpu._blockwise import elemwise as _ew
 
-    m = _ew(_bs.frexp_mantissa, x)
-    e = _ew(_bs.frexp_exponent, x)
-    return m, e
+    return _ew(_frexp_mantissa, x), _ew(_frexp_exponent, x)
 
 
 def modf(x):

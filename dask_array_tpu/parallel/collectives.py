@@ -32,7 +32,7 @@ def halo_exchange(x, mesh, axis_name, axis: int, depth: int, wrap: bool = False)
 
     Each shard receives ``depth`` rows from its left and right neighbors via
     ``lax.ppermute`` (the reference's overlap ghost-cell tasks,
-    ``/root/reference/dask_array/_overlap.py:70``, as one ICI neighbor
+    ``/root/reference/dask_array/_overlap.py:70``, as one neighbor
     exchange).  Edge shards get zero halos unless ``wrap`` (periodic).
 
     ``axis_name`` may be a TUPLE of mesh axes for an axis sharded over a
@@ -92,7 +92,7 @@ def alltoall_reshard(
 ):
     """Move the sharded dimension from ``from_axis`` to ``to_axis``.
 
-    One ``lax.all_to_all`` over ICI — the SPMD form of the reference's
+    One ``lax.all_to_all`` — the SPMD form of the reference's
     rechunk task plan for an axis-swap relayout
     (``/root/reference/dask_array/_rechunk.py`` TasksRechunk/P2PRechunk).
 
@@ -208,7 +208,7 @@ def swap_reshard(x, mesh, name_a, name_b, axis_a, axis_b, spec=None):
 
 
 def mesh_collective_relayout(dense, old_chunks, new_chunks, mesh, method=None):
-    """Explicit ICI collective schedule for a rechunk layout boundary.
+    """Explicit collective schedule for a rechunk layout boundary.
 
     Compares the mesh layouts of the OLD and NEW chunk grids
     (``plan_layout``); every mesh axis whose array-axis assignment moves is
@@ -263,9 +263,9 @@ def mesh_collective_relayout(dense, old_chunks, new_chunks, mesh, method=None):
             return None  # same-axis nesting reorder: GSPMD's schedule
         return None
     # DCN moves (rare — plan_layout pins DCN axes grid-independently, so a
-    # move only happens under a hand-written spec) stage LAST: every ICI
+    # move only happens under a hand-written spec) stage LAST: every
     # exchange completes first, and the slow-fabric transfer runs once on
-    # the final layout instead of serialising intermediate ICI stages
+    # the final layout instead of serialising intermediate stages
     # behind it.
     from dask_array_tpu.parallel.mesh import dcn_axis_names
 
@@ -384,7 +384,7 @@ def mesh_collective_relayout(dense, old_chunks, new_chunks, mesh, method=None):
 
 
 def psum_reduce(x, mesh, axis_name: str, axis: int):
-    """Sum over a sharded axis: local reduce + one psum tree over ICI.
+    """Sum over a sharded axis: local reduce + one psum tree.
 
     The SPMD form of the reference's ``PartialReduce`` split_every cascade
     (``/root/reference/dask_array/reductions/_reduction.py:900``).

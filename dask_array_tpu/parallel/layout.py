@@ -1,6 +1,6 @@
 """Chunk-grid -> mesh-sharding layout solver.
 
-The dask "chunks" duality on TPU (SURVEY.md §7 "chunks-vs-sharding"):
+The dask "chunks" duality on a mesh (SURVEY.md §7 "chunks-vs-sharding"):
 chunks form an arbitrary logical grid; XLA shardings are regular.  This
 module maps a chunk grid onto a mesh by assigning mesh axes to the array
 axes whose *sizes* divide evenly, preferring the axes with the most blocks

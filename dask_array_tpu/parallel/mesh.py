@@ -53,7 +53,7 @@ DCN_AXIS_NAMES = frozenset({"dcn", "slice", "pod"})
 def dcn_axis_names(mesh):
     """The mesh-axis names that cross the inter-slice DCN fabric.
 
-    Multi-slice TPU topologies (the scaling-book's data-parallel-over-DCN
+    Multi-slice topologies (the scaling-book's data-parallel-over-DCN
     recipe) have one or more mesh axes whose links are ~10-100x slower than
     ICI; layout and collective scheduling treat them specially (see
     ``plan_layout`` and ``mesh_collective_relayout``).
@@ -70,7 +70,7 @@ def multislice_mesh(n_slices, ici_axis_names=("x", "y"), devices=None):
     """Mesh over a multi-slice topology: leading ``dcn`` axis, ICI inside.
 
     Groups devices by their ``slice_index`` attribute when the platform
-    reports one (real multi-slice TPU pods); otherwise splits contiguously
+    reports one (real multi-slice pods); otherwise splits contiguously
     (virtual/CPU meshes).  Each slice's devices form a near-square ICI
     sub-mesh; the slice axis is named ``dcn`` so the layout solver and
     relayout scheduler apply the DCN discipline automatically.

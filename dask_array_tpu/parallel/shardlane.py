@@ -20,7 +20,7 @@ owns whole blocks and runs per-block logic:
     ``ndev * rest`` elements, not the array
     (reference: ``CumReductionBlelloch``,
     ``/root/reference/dask_array/reductions/_cumulative.py:267``),
-  * 2-D matmul/matvec terminals run on the MXU in one of three forms:
+  * 2-D matmul/matvec terminals run in one of three forms:
     free (row) axis chunked — the rhs replicates whole and the compiled
     HLO holds NO collective; CONTRACTION axis chunked (the classic
     tensor-parallel split) — both operands restack along the shared
@@ -41,7 +41,7 @@ one typed reduction (sum/prod/min/max/mean over all axes, over ``d``, or
 block-locally over unsharded axes), one cumsum/cumprod (two-phase
 Blelloch along ``d``; collective-free block-local scans along unsharded
 axes), or one 2-D MATMUL/matvec: rows chunked → rhs replicated whole
-(weights-stationary per-device MXU GEMMs, zero collectives); contraction
+(weights-stationary per-device GEMMs, zero collectives); contraction
 chunked → both operands restacked along the shared profile, per-device
 partial GEMMs, ONE psum (the classic tensor-parallel split).  The rhs's
 own declared chunk grid never matters — blocks restack from the dense
@@ -397,7 +397,7 @@ def _plan_matmul(root):
 
     * **rows** (free axis chunked): the rhs is replicated whole
       (weights-stationary) and each device runs its row blocks' GEMM on
-      its own MXU — ZERO collectives in the compiled HLO.
+      its own blocks — ZERO collectives in the compiled HLO.
     * **contraction chunked** (``matmul_k`` — the classic tensor-parallel
       pattern): both operands are restacked along the shared contraction
       profile, each device contracts its own blocks, and the partial
@@ -965,7 +965,7 @@ def try_execute_shard(root, mesh, auto=False):
     if kind == "stencil":
         # map_overlap in-lane: halo rows from neighbor blocks — shifted
         # takes for same-device slots, ONE ppermute per direction for the
-        # device-boundary edge bands (the minimal ICI schedule on the
+        # device-boundary edge bands (the minimal schedule on the
         # stacked layout), then func per block and trim
         mb, depth, boundary = aux[0], aux[1], aux[2]
         func = mb.operand("func")
@@ -1120,7 +1120,7 @@ def try_execute_shard(root, mesh, auto=False):
     if kind == "matmul":
         # weights-stationary GEMM: rhs (possibly an elemwise tree) is
         # replicated WHOLE (its declared chunk grid is irrelevant); each
-        # device contracts its own row blocks on its MXU.  Padding rows
+        # device contracts its own row blocks locally.  Padding rows
         # multiply to garbage that _unstack drops; the compiled HLO
         # contains NO collective (pinned by tests/test_shardlane.py)
         # where GSPMD's pad-to-regular lowering of the uneven row dim is
@@ -1222,7 +1222,7 @@ def try_execute_shard(root, mesh, auto=False):
         # contraction axis chunked — the classic tensor-parallel GEMM:
         # both operands restack along the shared contraction profile
         # (the rhs from its DENSE host buffer, whatever its declared
-        # grid), each device contracts its own blocks on its MXU, and
+        # grid), each device contracts its own blocks locally, and
         # the partials combine with exactly ONE psum; the output is
         # replicated.  Padded contraction entries are zeroed on BOTH
         # sides after the elemwise trees run (a tree can turn the zero

@@ -16,7 +16,7 @@ import inspect
 _NOTE = """
 
 This docstring was copied from ``numpy.{qual}`` (dask_array_tpu provides a
-chunked, lazy, TPU-executing version of the numpy API).  Differences from
+chunked, lazy, XLA-executing version of the numpy API).  Differences from
 numpy: arrays are lazy expressions evaluated by ``.compute()``; operations
 run block-wise on device; ``order=``/``subok=`` style memory-layout
 keywords are generally not supported; some functions accept an extra

@@ -1,23 +1,14 @@
-"""TPU-safe (bitcast-free) formulations of the bit-twiddling ufuncs.
+"""The bit-level float ufuncs on float64: numpy parity through ``da.*``.
 
-On TPU under jax_enable_x64, the jnp natives for signbit/copysign/ldexp/
-frexp/nextafter/spacing fail to COMPILE on f64 (XLA's x64-rewrite pass has
-no rule for 64-bit bitcast-convert).  ``ops/_bitsafe.py`` carries
-arithmetic formulations; these tests force the safe path on CPU and check
-it against numpy, so the math is validated independent of the platform
-switch.
+``signbit``, ``copysign``, ``ldexp``, ``frexp``, ``nextafter`` and
+``spacing`` call the ``jax.numpy`` natives on every backend.  These cases
+pin their float64 behaviour at the special values (signed zeros, the
+extremes of the normal range, infinities, NaN) through the lazy API.
 """
 
 import numpy as np
-import pytest
 
 import dask_array_tpu as da
-from dask_array_tpu.ops import _bitsafe
-
-
-@pytest.fixture()
-def force_safe(monkeypatch):
-    monkeypatch.setattr(_bitsafe, "_use_safe", lambda *a: True)
 
 
 def _vals():
@@ -28,69 +19,73 @@ def _vals():
     )
 
 
-def test_signbit_arith_matches_numpy(force_safe):
+def _lazy(v, chunks=6):
+    return da.from_array(v, chunks=chunks)
+
+
+def test_signbit_arith_matches_numpy():
     v = _vals()
-    got = np.asarray(_bitsafe.signbit(v))
-    exp = np.signbit(v)
-    # NaN sign is unspecified in the arithmetic formulation; skip it
-    ok = ~np.isnan(v)
-    np.testing.assert_array_equal(got[ok], exp[ok])
+    got = np.asarray(da.signbit(_lazy(v)).compute())
+    ok = ~np.isnan(v)  # the sign bit of a NaN is not part of the contract
+    np.testing.assert_array_equal(got[ok], np.signbit(v)[ok])
 
 
-def test_copysign_arith_matches_numpy(force_safe):
+def test_copysign_arith_matches_numpy():
     x = _vals()
     for y in (np.float64(3.0), np.float64(-3.0), np.float64(-0.0), -x):
-        got = np.asarray(_bitsafe.copysign(x, y))
+        yy = _lazy(y) if np.ndim(y) else y
+        got = np.asarray(da.copysign(_lazy(x), yy).compute())
         exp = np.copysign(x, y)
         ok = ~np.isnan(np.broadcast_to(y, x.shape))
         np.testing.assert_array_equal(got[ok], exp[ok])
+        assert np.array_equal(np.signbit(got[ok]), np.signbit(exp[ok]))
 
 
-def test_ldexp_arith_matches_numpy(force_safe):
+def test_ldexp_arith_matches_numpy():
     x = np.array([1.0, -1.5, 0.75, 3.141592653589793, 0.0, -0.0, np.inf])
     for n in (-1000, -600, -53, -1, 0, 1, 53, 600, 1000):
-        got = np.asarray(_bitsafe.ldexp(x, np.int64(n)))
-        exp = np.ldexp(x, n)
-        np.testing.assert_array_equal(got, exp)
+        got = np.asarray(da.ldexp(_lazy(x, 3), np.int64(n)).compute())
+        np.testing.assert_array_equal(got, np.ldexp(x, n))
 
 
-def test_ldexp_arith_vector_exponent(force_safe):
+def test_ldexp_arith_vector_exponent():
     x = np.linspace(-2.0, 2.0, 9)
     n = np.arange(-4, 5)
-    np.testing.assert_array_equal(
-        np.asarray(_bitsafe.ldexp(x, n)), np.ldexp(x, n)
-    )
+    got = da.ldexp(_lazy(x, 4), _lazy(n, 4)).compute()
+    np.testing.assert_array_equal(np.asarray(got), np.ldexp(x, n))
 
 
-def test_frexp_arith_matches_numpy(force_safe):
+def test_frexp_arith_matches_numpy():
     v = _vals()
-    m_got = np.asarray(_bitsafe.frexp_mantissa(v))
-    e_got = np.asarray(_bitsafe.frexp_exponent(v))
+    m, e = da.frexp(_lazy(v))
+    m_got, e_got = np.asarray(m.compute()), np.asarray(e.compute())
     m_exp, e_exp = np.frexp(v)
     ok = np.isfinite(v)
     np.testing.assert_array_equal(m_got[ok], m_exp[ok])
     np.testing.assert_array_equal(e_got[ok], e_exp[ok])
-    # frexp(x) reconstructs: m * 2**e == x (finite values)
-    recon = np.ldexp(m_got[ok], e_got[ok])
-    np.testing.assert_array_equal(recon, v[ok])
-    # non-finite: mantissa passes through
-    bad = ~np.isfinite(v)
+    np.testing.assert_array_equal(np.ldexp(m_got[ok], e_got[ok]), v[ok])
+    bad = ~np.isfinite(v)  # non-finite mantissas pass through
     np.testing.assert_array_equal(m_got[bad], v[bad])
 
 
-def test_nextafter_f32_granularity(force_safe):
-    # the safe path computes at f32 granularity (the platform demotes f64)
-    # no denormal cases: XLA flushes f32 subnormals to zero on upcast
-    x = np.array([1.0, -1.0, 1e-30, 2.5])
-    got = np.asarray(_bitsafe.nextafter(x, np.float64(np.inf)))
-    exp = np.nextafter(x.astype(np.float32), np.float32(np.inf)).astype(np.float64)
-    np.testing.assert_array_equal(got, exp)
+def test_nextafter_f32_granularity():
+    # one ulp of the input's own dtype: float64 here, float32 below
+    x = np.array([1.0, -1.0, 1e-30, 2.5, 0.0, -0.0, 1e300])
+    got = np.asarray(da.nextafter(_lazy(x, 4), np.float64(np.inf)).compute())
+    np.testing.assert_array_equal(got, np.nextafter(x, np.inf))
     assert np.all(got > x)
+    x32 = x.astype(np.float32)[:4]
+    got32 = np.asarray(da.nextafter(_lazy(x32, 2), np.float32(-np.inf)).compute())
+    assert got32.dtype == np.float32
+    np.testing.assert_array_equal(got32, np.nextafter(x32, np.float32(-np.inf)))
+    sp = np.asarray(da.spacing(_lazy(x, 4)).compute())
+    # the sign of spacing(-0.0) differs between numpy and XLA; magnitudes agree
+    np.testing.assert_array_equal(np.abs(sp), np.abs(np.spacing(x)))
+    nz = x != 0
+    np.testing.assert_array_equal(sp[nz], np.spacing(x)[nz])
 
 
 def test_lazy_array_path_roundtrip(rng):
-    # through the full lazy pipeline (native path on CPU; platform switch
-    # is covered by the forced tests above and by the chip verify)
     xs = rng.standard_normal((4, 6))
     x = da.from_array(xs, chunks=(2, 3))
     np.testing.assert_array_equal(

@@ -353,22 +353,35 @@ def test_lu_large_nonuniform_grid_falls_back_incore(rng):
 
 
 def test_pivoted_lu_block_matches_contract(rng):
-    import jax.numpy as jnp
+    # da.linalg.lu honours the scipy contract a == p @ l @ u (l unit lower,
+    # u upper, p a permutation) for single- and multi-block f64 and complex
+    for n, c in ((1, 1), (2, 2), (9, 9), (33, 33), (33, 11)):
+        x = rng.standard_normal((n, n))
+        p, l, u = (np.asarray(v) for v in da.compute(*da.linalg.lu(da.from_array(x, chunks=c))))
+        np.testing.assert_allclose(p @ l @ u, x, atol=1e-11)
+        assert np.allclose(np.triu(l, 1), 0) and np.allclose(np.diag(l), 1)
+        assert np.allclose(np.tril(u, -1), 0)
+        np.testing.assert_allclose(p @ p.T, np.eye(n), atol=1e-13)
+    x = rng.standard_normal((6, 6)) + 1j * rng.standard_normal((6, 6))
+    p, l, u = (np.asarray(v) for v in da.compute(*da.linalg.lu(da.from_array(x, chunks=3))))
+    np.testing.assert_allclose(p @ l @ u, x, atol=1e-11)
 
-    from dask_array_tpu.ops.linalg_decomp import _pivoted_lu
 
-    for n in (1, 2, 9, 33):
-        a = jnp.asarray(rng.standard_normal((n, n)))
-        p, l, u = _pivoted_lu(a)
-        np.testing.assert_allclose(np.asarray(p @ l @ u), np.asarray(a), atol=1e-11)
-        L, U, P = np.asarray(l), np.asarray(u), np.asarray(p)
-        assert np.allclose(np.triu(L, 1), 0) and np.allclose(np.diag(L), 1)
-        assert np.allclose(np.tril(U, -1), 0)
-        np.testing.assert_allclose(P @ P.T, np.eye(n), atol=1e-13)
-    # complex input follows the same contract
-    a = jnp.asarray(rng.standard_normal((6, 6)) + 1j * rng.standard_normal((6, 6)))
-    p, l, u = _pivoted_lu(a)
-    np.testing.assert_allclose(np.asarray(p @ l @ u), np.asarray(a), atol=1e-11)
+@pytest.mark.parametrize("together", [True, False])
+def test_tsqr_svd_u_and_vh_agree(together):
+    # the fused TSQRSVD builds u, s and vh as separate expressions; on this
+    # input their Gram eigenvectors came out with different signs, so
+    # U S Vh missed A by O(|A|) while U and Vh were each orthonormal
+    rng = np.random.default_rng(1)
+    for shape in ((32, 32), (16, 32), (32, 32)):
+        rng.standard_normal(shape)
+    a = rng.standard_normal((256, 8)).astype(np.float32)
+    u, s, vh = da.linalg.svd(da.from_array(a, chunks=(64, 8)))
+    if together:
+        u, s, vh = da.compute(u, s, vh)
+    else:
+        u, s, vh = u.compute(), s.compute(), vh.compute()
+    np.testing.assert_allclose((np.asarray(u) * s) @ vh, a, atol=1e-4)
 
 
 def test_tsqr_svd_fused_one_program(rng):

@@ -160,7 +160,7 @@ def test_svd_flip_correction(shape, chunks, dtype):
     local = np.random.default_rng(7)  # fixed draw: f4 tolerance is cond-sensitive
     x = da.from_array(local.random(shape).astype(dtype), chunks=chunks)
     u, s, v = da.linalg.svd(x)
-    # f4 runs the MXU-native CholeskyQR2 TSQR whose residual scales with
+    # f4 runs the matmul-only CholeskyQR2 TSQR whose residual scales with
     # cond^2 * eps_f32 — decimal=4 is the honest tight bound there
     decimal = 9 if np.dtype(dtype).itemsize > 4 else 4
     uf, vf = svd_flip(u, v)
@@ -249,8 +249,7 @@ def test_norm_any_ndim(shape, chunks, axis, norm, keepdims):
 @pytest.mark.parametrize("keepdims", [False, True])
 @pytest.mark.parametrize("norm", [None, 1, -1, np.inf, -np.inf])
 def test_norm_any_prec(norm, keepdims, precision):
-    # real dtypes only: complex is platform-gated on this TPU build (the
-    # CPU test lane covers it elsewhere via ops tests)
+    # real dtypes only: complex norms are covered by the ops tests
     dtype = {"single": "float32", "double": "float64"}[precision]
     a = rng.random((5,)).astype(dtype)
     d = da.from_array(a, chunks=(2,))

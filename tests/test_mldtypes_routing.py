@@ -2,9 +2,8 @@
 (`np.issubdtype(bfloat16, np.floating)` is False, dtype kind is 'V'), so
 every kind/issubdtype gate needs the extended predicates
 (`_chunks.host_only_dtype`, `_chunks.is_float_dtype`).  These tests pin the
-routing decisions where a bare numpy check silently demotes the TPU's
-native dtype to host lanes, f64 emulation (~100x slow on this chip), or
-wrong-method fallbacks.
+routing decisions where a bare numpy check silently demotes bf16 to host
+lanes, f64 promotion, or wrong-method fallbacks.
 """
 
 import numpy as np
@@ -32,8 +31,7 @@ def test_is_float_dtype_table(bf16):
 
 
 def test_sliding_mean_keeps_bf16(bf16):
-    """Moving-window reductions must not promote bf16 meta/compute to f64
-    (emulated ~100x slow on this TPU)."""
+    """Moving-window reductions must not promote bf16 meta/compute to f64."""
     x = da.ones((32,), chunks=16, dtype=bf16)
     v = da.sliding_window_view(x, 8, axis=0).mean(axis=-1)
     assert np.dtype(v.dtype) == np.dtype(bf16)
@@ -145,9 +143,9 @@ def test_zarr_bf16_round_trip(bf16, tmp_path):
 
 
 def test_linalg_bf16_promotes_to_f32_not_f64(bf16):
-    """Factorizations of bf16 inputs promote to f32 (emulated f64 is ~100x
-    slow on this TPU); numpy's own LAPACK refuses sub-f32 floats outright,
-    so f32 is both the capability extension and the fast lane."""
+    """Factorizations of bf16 inputs promote to f32, not f64; numpy's own
+    LAPACK refuses sub-f32 floats outright, so f32 is both the capability
+    extension and the fast lane."""
     rng = np.random.default_rng(11)
     a_np = rng.standard_normal((16, 8)).astype(np.float32)
     a = da.from_array(a_np.astype(bf16), chunks=(8, 8))

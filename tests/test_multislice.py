@@ -1,6 +1,6 @@
 """Multi-slice (DCN) topology discipline.
 
-Multi-slice TPU pods connect slices over DCN, ~10-100x slower than
+Multi-slice pods connect slices over DCN, ~10-100x slower than
 intra-slice ICI.  The framework's discipline (SURVEY.md §2.6 "multi-pod /
 DCN", scaling-book data-parallel-over-DCN recipe):
 

@@ -1,4 +1,4 @@
-"""Rechunk-as-collective: the executor must emit a real ICI all-to-all.
+"""Rechunk-as-collective: the executor must emit a real all-to-all.
 
 VERDICT round-1 item 1: a rechunk that moves the sharded mesh axis between
 array axes must lower to an ``all-to-all`` HLO (bisection-bandwidth

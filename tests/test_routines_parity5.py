@@ -181,8 +181,8 @@ def test_histogramdd_scalar_bins_requires_range(bins):
 
 def test_einsum_chunksizes():
     # the reference SPLITS blown-up einsum outputs to bound per-task chunk
-    # bytes (its expectation: ((4,)*2,)*8 for the 8^8 output); on TPU fewer,
-    # larger blocks are strictly better (one XLA program tiles the MXU
+    # bytes (its expectation: ((4,)*2,)*8 for the 8^8 output); here fewer,
+    # larger blocks are strictly better (one XLA program tiles the matmul
     # internally; 256 tiny blocks would be dispatch-bound), so this
     # framework keeps whole-axis output chunks — assert a valid tiling and
     # value parity on the computable case

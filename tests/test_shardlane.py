@@ -762,7 +762,7 @@ _WCOLS = (7, 11, 3, 5, 8, 2, 1)  # irregular column blocks (sum 37)
 
 def test_matmul_cols_values(mesh8):
     # the Megatron column split: weights sharded by columns, the
-    # single-block lhs replicated, per-device MXU GEMMs, ZERO collectives;
+    # single-block lhs replicated, per-device GEMMs, ZERO collectives;
     # output chunked along columns
     rng = np.random.default_rng(90)
     src = rng.standard_normal((12, 6))

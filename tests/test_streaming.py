@@ -294,3 +294,57 @@ def test_maybe_stream_none_means_untouched():
     x = da.from_array(src, chunks=(4, 4))
     with _force():
         assert maybe_stream(x.expr) is None
+
+
+# ---------------------------------------------------------------------------
+# automatic budget
+# ---------------------------------------------------------------------------
+
+
+class _FakeDevice:
+    def __init__(self, platform, stats):
+        self.platform = platform
+        self.device_kind = f"fake {platform}"
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+def _auto_budget(monkeypatch, dev):
+    import jax
+
+    from dask_array_tpu import _streaming
+
+    monkeypatch.setattr(jax, "devices", lambda *a: [dev])
+    with config.set({"tpu.memory-budget": "auto"}):
+        return _streaming._budget()
+
+
+@pytest.mark.parametrize("limit", [16 * 2**30, 60 * 2**30])
+def test_auto_budget_is_device_limit_less_headroom(monkeypatch, limit):
+    from dask_array_tpu._streaming import _HEADROOM
+
+    got = _auto_budget(monkeypatch, _FakeDevice("gpu", {"bytes_limit": limit}))
+    assert got == int(limit * (1 - _HEADROOM))
+    assert 0 < got < limit
+
+
+@pytest.mark.parametrize("stats", [None, {}, {"bytes_in_use": 1}])
+def test_auto_budget_without_memory_stats_is_an_error(monkeypatch, stats):
+    with pytest.raises(RuntimeError, match="no memory limit"):
+        _auto_budget(monkeypatch, _FakeDevice("gpu", stats))
+
+
+def test_auto_budget_cpu_host_never_engages(monkeypatch):
+    assert _auto_budget(monkeypatch, _FakeDevice("cpu", None)) == 1 << 62
+
+
+def test_explicit_budget_overrides_device(monkeypatch):
+    import jax
+
+    from dask_array_tpu import _streaming
+
+    monkeypatch.setattr(jax, "devices", lambda *a: [_FakeDevice("gpu", None)])
+    with config.set({"tpu.memory-budget": "1 GiB"}):
+        assert _streaming._budget() == 2**30

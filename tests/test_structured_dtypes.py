@@ -47,7 +47,7 @@ def test_field_access_with_shape_reference_case():
     assert_eq(x[["col1", "col2"]], data[["col1", "col2"]])
 
 
-def test_field_then_tpu_arithmetic(rec):
+def test_field_then_device_arithmetic(rec):
     x = da.from_array(rec, chunks=4)
     got = (x["a"] * 2 + x["b"]).compute()
     np.testing.assert_allclose(got, rec["a"] * 2 + rec["b"])
